@@ -1,6 +1,6 @@
 """
-ecw_cc_tpu — a TPU-native framework for Experimentally Constrained Wave function
-Coupled Cluster (ECW-CC), built from scratch on JAX/XLA/Pallas.
+ecw_cc_tpu — a JAX framework for Experimentally Constrained Wave function
+Coupled Cluster (ECW-CC), built from scratch on JAX/XLA.
 
 Capabilities (parity target: MilaimKas/ECW_CC, see SURVEY.md):
   - Ground-state ECW-CCS and ECW-CCSD with SCF+DIIS solvers, L1 regularization
@@ -15,10 +15,9 @@ Capabilities (parity target: MilaimKas/ECW_CC, see SURVEY.md):
     RHF/UHF SCF, GHF conversion) replacing the reference's PySCF dependency.
 
 Architecture: the host layer (molecule/basis/integrals/SCF) runs in NumPy; all
-CC residual updates, rdm1 builds and the Vexp coupling run on-device as jitted
-einsum/dot_general contractions, with the hot vvvv ladder contraction available
-as a Pallas MXU kernel. Solvers run as lax.while_loop fixed-point iterations
-with on-device DIIS.
+CC residual updates, rdm1 builds and the Vexp coupling run on-device (a GPU in
+production) as jitted einsum/dot_general contractions. Solvers run as
+lax.while_loop fixed-point iterations with on-device DIIS.
 
 Usage mirrors the reference (`__init__.py:9-40` doctest of the reference):
 

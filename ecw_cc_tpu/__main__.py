@@ -41,8 +41,8 @@ def _larray(spec):
     return np.asarray(arr, dtype=float)
 
 
-def run_spec(spec):
-    """Execute one experiment spec; returns the solver results."""
+def build_ecw(spec):
+    """Apply the spec's config, build the ECW driver and its targets."""
     import ecw_cc_tpu.config as config
 
     dtype = spec.get("dtype")
@@ -71,8 +71,13 @@ def run_spec(spec):
             ecw.Build_ES_exp_input(es["input"])
         else:
             raise ValueError(f"unknown es_targets spec: {es}")
+    return ecw
 
-    run = dict(spec.get("run", {"solver": "CCSD_GS"}))
+
+def run_solver(ecw, run):
+    """Run the spec's "run" section on a built driver; returns the solver
+    results (per-lambda records stay on the driver, e.g. ecw.Delta_lamb)."""
+    run = dict(run)
     solver = run.pop("solver", "CCSD_GS")
     if solver in ("CCS_GS", "CCSD_GS"):
         L = _larray(run)
@@ -87,6 +92,12 @@ def run_spec(spec):
         return results
     raise ValueError(f"unknown solver {solver!r} "
                      "(use CCS_GS, CCSD_GS or CCS_ES)")
+
+
+def run_spec(spec):
+    """Execute one experiment spec; returns the solver results."""
+    return run_solver(build_ecw(spec),
+                      spec.get("run", {"solver": "CCSD_GS"}))
 
 
 def main(argv=None):

@@ -110,7 +110,7 @@ _C2S_CACHE = {}
 
 def _c2s_general(l):
     """Real-solid-harmonic expansion over the CART_COMPONENTS[l] monomials
-    for arbitrary l (g shells and beyond, r3 VERDICT next #8).
+    for arbitrary l (g shells and beyond).
 
     r^l Y_lm is a homogeneous degree-l polynomial, so its monomial
     coefficients are EXACT: they are recovered by least squares from real

@@ -26,9 +26,10 @@ NATIVE_LMAX = 4
 
 
 def _lib_path():
-    """Binary name keyed on the source CONTENT hash (not mtimes): a stale
-    binary from a different source or a different machine (-march=native!)
-    is never loaded — a fresh clone rebuilds on first use."""
+    """Binary name keyed on the source CONTENT hash (not mtimes): a binary
+    from a different source is never loaded, and a fresh clone (the .so is
+    gitignored) rebuilds on first use.  A binary copied with the checkout to
+    another machine would be loaded (-march=native): do not copy it."""
     with open(_SRC, "rb") as f:
         h = hashlib.sha256(f.read()).hexdigest()[:12]
     return os.path.join(_HERE, f"libmdint-{h}.so")

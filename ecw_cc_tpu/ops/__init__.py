@@ -1,5 +1,5 @@
 """Device ops: jitted CC kernels (CCS/CCSD), raw-equation oracles, Vexp engine,
-DIIS, L1 regularization, Pallas kernels."""
+DIIS, L1 regularization."""
 
 from ecw_cc_tpu.config import setup_jax
 

@@ -754,7 +754,7 @@ class Gccs:
 # ---------------------------------------------------------------------------
 # Gradient / Newton machinery (reference CCS.py:1524-2160, class ccs_gradient)
 #
-# TPU-first re-design: instead of the reference's ~600 lines of hand-derived
+# Re-design: instead of the reference's ~600 lines of hand-derived
 # Jacobian blocks (dT/dt, dT/dl, dL/dt, dL/dl with three Vexp-derivative
 # models DV1/DV2/DV3, CCS.py:1668-2071), the Jacobian of the coupled
 # (T1, Lambda1) residual system is obtained EXACTLY with jax.jacfwd through

@@ -14,8 +14,8 @@ energy_term='off' gives the textbook Lambda equations (equal to the
 raw-equation oracle and PySCF), used for plain-CCSD target generation.
 
 The vvvv ladder contraction ('ijef,abef->ijab', the hot spot flagged in
-SURVEY.md section 6) is routed through ops/ladder.py, which picks an XLA
-dot_general or a Pallas MXU kernel.
+SURVEY.md section 6) is routed through ops/ladder.py: one dense XLA
+dot_general, or the packed / spin-sector operands at larger nvir.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ from ecw_cc_tpu.ops.gemm import gemm_einsum as einsum  # flat-GEMM: 11x einsum p
 # Several hot contractions consume the 238 MB (at pVTZ) ovvv block in an
 # index order that forces a transpose (or a strided read) inside every
 # iteration.  The permutations are loop-INVARIANT: building them once per
-# solve (outside the while_loop — XLA hoists them; ~2 ms one-time) turns
-# each consumer into a plain MXU dot on a contiguous operand.  The views are
+# solve (outside the while_loop — XLA hoists them; a one-time cost) turns
+# each consumer into a plain dot on a contiguous operand.  The views are
 # optional everywhere (views=None keeps the reference-ordered einsum path,
 # which the host/f64 parity tests exercise).
 # ---------------------------------------------------------------------------

@@ -1,18 +1,16 @@
 """Flat-GEMM einsum: collapse 2-operand contractions to one 2-D dot.
 
-XLA's TPU lowering of a dot_general with MULTIPLE contracting/free
-dimensions is pathological at CC kernel shapes: the identical data as a
-flat (M,K)x(K,N) GEMM runs up to 11x faster (measured on the bench chip:
-`ijcd,klcd->ijkl` at nocc=14/nvir=162 is 1.07 ms as a 4-D einsum vs
-0.10 ms flattened).  The fix must not ADD memory traffic, though: a first
-version that transposed arbitrary operands into GEMM layout lost more to
-the materialized copies than the flat dot recovered (pVTZ step 12.0 ->
-13.0 ms).  `gemm_einsum` therefore flattens ONLY when both operands carry
-their contraction letters as a contiguous PREFIX or SUFFIX in matching
-order — then the reshape is free and the single-contracting-dim
-lax.dot_general replaces the slow multi-dim form at zero byte cost.
-Measured on the hot families this covers (the o^4 v^2 woooo/X/ltau terms
-and the tau.ovvv Y twins): 3-11x per contraction.
+A dot_general with MULTIPLE contracting/free dimensions can lower to a
+slower kernel than the identical data as one flat (M,K)x(K,N) GEMM (this
+engine was written for an accelerator where the gap was large at CC kernel
+shapes, e.g. `ijcd,klcd->ijkl`; its size on the GPU is not measured).  The
+fix must not ADD memory traffic, though: transposing arbitrary operands
+into GEMM layout costs materialized copies.  `gemm_einsum` therefore
+flattens ONLY when both operands carry their contraction letters as a
+contiguous PREFIX or SUFFIX in matching order — then the reshape is free
+and the single-contracting-dim lax.dot_general replaces the multi-dim form
+at zero byte cost (the hot families this covers: the o^4 v^2
+woooo/X/ltau terms and the tau.ovvv Y twins).
 
 Everything else falls back to jnp.einsum unchanged (same transposes it
 would have emitted anyway).  Exact: same multiply-add set, flattened
@@ -81,9 +79,9 @@ def gemm_einsum(spec, *ops, **kw):
     docstring).
 
     flip=True emits the TRANSPOSED orientation — dot(B2, A2) with output
-    (N, M) — so the larger free dimension streams through the MXU as the
+    (N, M) — so the larger free dimension streams through the GEMM as the
     matmul M; the extra output transpose is on the (small) result, never
-    an operand (r3 VERDICT next #2: small-M sector GEMMs pay the systolic
+    an operand (small-M sector GEMMs pay the systolic
     pipeline latency per tile pass)."""
     flip = kw.pop("flip", False)
     kw.pop("optimize", None)   # meaningless for the 2-operand flat route
@@ -129,7 +127,7 @@ def gemm_einsum_sum(spec, subs_list, flip=False):
     contributions' contraction axes are CONCATENATED (each pair may have a
     different contraction size; the free shapes must match).  Used by
     spinsect.sector_einsum in 'kconcat' mode — the spin-sector sum into one
-    output block rides one GEMM instead of k (r3 VERDICT next #2).  The
+    output block rides one GEMM instead of k.  The
     concat copies are operand-block-sized (KB-scale at CC shapes).  Exact:
     the same multiply-add set, one flat reduction."""
     subs_list = list(subs_list)

@@ -2,7 +2,7 @@
 
 The reference implements the Ivanov et al. (Mol. Phys. 115, 2017) sub-gradient
 with explicit index loops; here both `subdiff` and `prox_l1` are elementwise
-`where` chains, jit/vmap-safe on TPU.
+`where` chains, jit/vmap-safe.
 
 Behavioral note (replicated exactly): the reference's zero-branch test is
 `v <= 0` while the nonzero branch is `|v| > 0`, so strictly negative

@@ -5,25 +5,17 @@ t2 += 0.5 einsum('ijef,abef->ijab', tau, Wvvvv)  (CCSD.py:305,396-402): an
 O(nocc^2 nvir^4) contraction that dominates the iteration cost (SURVEY.md
 section 6).
 
-TPU-first design here:
+Design:
   - the Wvvvv intermediate is NEVER materialized; the three contributions are
     contracted with tau directly:
-      L1 = 0.5 tau_ijef <ab||ef>              (o^2 v^2) x (v^2 v^2) matmul -> MXU
+      L1 = 0.5 tau_ijef <ab||ef>              (o^2 v^2) x (v^2 v^2) matmul
       L2 = -P_(ab) 0.5 tau_ijef t1_ma <mb||fe>   O(o^2 v^3)
       L3 = 0.125 (tau_ijef <mn||ef>) tau_mnab    O(o^4 v^2)
-  - L1 is a single (nocc^2, nvir^2) x (nvir^2, nvir^2) matmul: reshaped
-    dot_general rides the MXU directly; a Pallas kernel (enabled via
-    Config.use_pallas) tiles it explicitly with f32 accumulation, exploiting
-    the (ab)<->(ef) symmetry of <ab||ef> to skip the transpose.
-
-MEASURED on the v5e at C2H2/cc-pVTZ (tools/tpu_measure.py, r2): the Pallas
-kernel is CORRECT (3.7e-6 rel vs XLA in f32) but 2.6x slower than the XLA
-dot_general (32.0 vs 12.2 ms bare mm) — XLA's f32-highest matmul is already
-MXU-saturated (~45 TF/s effective inside the fused iteration).  XLA stays
-the default; the kernel remains as the tiling template for hardware/ops
-where the tradeoff flips.  The spin-sector route (below) is likewise exact
-but loses to dense on this chip (14.3 vs 6.1 ms isolated): the strided
-sector slicing costs more than the 5.3x FLOP cut saves — default off.
+  - L1 is a single (nocc^2, nvir^2) x (nvir^2, nvir^2) matmul: the reshaped
+    dot_general (the (ab)<->(ef) symmetry of <ab||ef> skips the transpose)
+    is one FP32 GEMM that XLA hands to cuBLAS.  The production route at
+    nvir >= ladder_packed_min_nvir replaces it with the packed / spin-sector
+    operands below; the dense GEMM serves the small shapes.
 """
 
 from __future__ import annotations
@@ -47,66 +39,8 @@ def _ladder_mm_xla(tau_r, vvvv_r):
     )
 
 
-def _round_up(x, m):
-    return ((x + m - 1) // m) * m
-
-
-def _ladder_mm_pallas(tau_r, vvvv_r, tile_m=128, tile_n=128, tile_k=512):
-    """Tiled Pallas matmul C[m,n] = sum_k tau_r[m,k] vvvv_r[n,k] with f32
-    accumulation; pads to MXU-aligned shapes."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    M, K = tau_r.shape
-    N = vvvv_r.shape[0]
-    Mp, Np, Kp = _round_up(M, tile_m), _round_up(N, tile_n), _round_up(K, tile_k)
-    a = jnp.zeros((Mp, Kp), tau_r.dtype).at[:M, :K].set(tau_r)
-    b = jnp.zeros((Np, Kp), vvvv_r.dtype).at[:N, :K].set(vvvv_r)
-
-    nk = Kp // tile_k
-
-    def kernel(a_ref, b_ref, o_ref, acc_ref):
-        k = pl.program_id(2)
-
-        @pl.when(k == 0)
-        def _():
-            acc_ref[:] = jnp.zeros_like(acc_ref)
-
-        acc_ref[:] += jax.lax.dot_general(
-            a_ref[:], b_ref[:],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-        @pl.when(k == nk - 1)
-        def _():
-            o_ref[:] = acc_ref[:].astype(o_ref.dtype)
-
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((Mp, Np), tau_r.dtype),
-        grid=(Mp // tile_m, Np // tile_n, nk),
-        in_specs=[
-            pl.BlockSpec((tile_m, tile_k), lambda i, j, k: (i, k),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_n, tile_k), lambda i, j, k: (j, k),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_m, tile_n), lambda i, j, k: (i, j),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((tile_m, tile_n), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary")),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Mp * Np * Kp,
-            bytes_accessed=(Mp * Kp + Np * Kp + Mp * Np) * 4,
-            transcendentals=0),
-    )(a, b)
-    return out[:M, :N]
-
-
 # ---------------------------------------------------------------------------
-# Spin-sector decomposition (exact, TPU-first)
+# Spin-sector decomposition (exact)
 #
 # In the G spin-orbital basis with alternating orbspin [0,1,0,1,...] (the
 # GHF construction, reference Eris.py:57), a spin-free Hamiltonian makes
@@ -184,7 +118,7 @@ def sector_vvvv_contract(sectors, x):
 
 
 # ---------------------------------------------------------------------------
-# Antisymmetry-packed ("triangular") decomposition (exact, TPU-first)
+# Antisymmetry-packed ("triangular") decomposition (exact)
 #
 # <ab||ef> is antisymmetric in (a,b) and in (e,f) and symmetric under the
 # pair swap (ab)<->(ef).  Every ladder operand in CC (tau, t2, l2) is
@@ -208,8 +142,7 @@ class PackedVVVV(NamedTuple):
 
 def _pack_pairs(x2, v):
     """(M, v*v) -> (M, p): keep columns (e*v+f) with e<f.  Static contiguous
-    slices + one concat — no gather (TPU gathers/scatters are slow; this is
-    a single memcpy-like pass)."""
+    slices + one concat — no gather (a single memcpy-like pass)."""
     pieces = [jax.lax.slice_in_dim(x2, e * v + e + 1, (e + 1) * v, axis=1)
               for e in range(v - 1)]
     return jnp.concatenate(pieces, axis=1)
@@ -275,7 +208,7 @@ def stacked_packed_contract(packed, x1, x2):
     """Both per-iteration ladders (t side on tau, lambda side on l2) as ONE
     (2 o^2, p) x (p, p) GEMM: the (p, p) packed operand — the largest block
     in HBM (680 MB at pVTZ) — is read once per iteration instead of twice,
-    and the GEMM M doubles (196 -> 392), halving MXU M-padding waste.
+    and the GEMM M doubles (196 -> 392), halving M-padding waste in the GEMM tiles.
 
     Returns (y1, y2) == (packed_vvvv_contract(packed, x1),
     packed_vvvv_contract(packed, x2)).  Requires x1/x2 antisymmetric in
@@ -443,7 +376,7 @@ def balanced_stacked_sectored_contract(sect, x1, x2, oa, sym=False,
     beta-beta column sectors receive only the (alpha,alpha) / (beta,beta)
     occupied row pairs and the alpha-beta sector only the (alpha,beta)
     rows — the (beta,alpha) output rows follow by ij-antisymmetry.  4x
-    fewer GEMM rows (and 4x fewer MXU M-tiles) than
+    fewer GEMM rows (and 4x fewer M-tiles) than
     stacked_sectored_contract; exact, the skipped rows are structural
     zeros.
 
@@ -620,18 +553,13 @@ def ladder_contract(eris, t1, t2, tau, vvvv_op=None, skip_quad=False,
     else:
         tau_r = tau.reshape(nocc * nocc, nvir * nvir)
         vvvv_r = eris.vvvv.reshape(nvir * nvir, nvir * nvir)
-        cfg = get_config()
-        use_pallas = cfg.use_pallas and jax.default_backend() == "tpu"
-        if use_pallas:
-            L1 = 0.5 * _ladder_mm_pallas(tau_r, vvvv_r)
-        else:
-            L1 = 0.5 * _ladder_mm_xla(tau_r, vvvv_r)
+        L1 = 0.5 * _ladder_mm_xla(tau_r, vvvv_r)
         L1 = L1.reshape(nocc, nocc, nvir, nvir)
 
     # - P_(ab) part from the t1.ovvv correction to Wvvvv; the P_(ab)
     # antisymmetrization is folded into two output-index-swapped einsums
-    # instead of a transpose of the o^2 v^2 result (measured ~0.3 ms at
-    # pVTZ — these terms sit at their M=196-row matmul roofline otherwise)
+    # instead of a transpose of the o^2 v^2 result (one o^2 v^2 copy less;
+    # these terms sit at their M=196-row matmul roofline otherwise)
     Y = Y_pre if Y_pre is not None else einsum("ijef,mbef->ijmb", tau,
                                                eris.ovvv)
     L2 = (einsum("ijmb,ma->ijab", Y, -0.5 * t1)

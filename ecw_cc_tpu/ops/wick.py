@@ -22,7 +22,7 @@ amplitudes, which certifies the generator itself; the CCSDT equations then
 come from the same machinery and are validated by solving them for a
 3-electron system, where CCSDT is exact (== FCI).
 
-Evaluation is jnp.einsum over the generated term list — jit-safe, TPU-ready
+Evaluation is jnp.einsum over the generated term list — jit-safe
 (tiny systems only; this is a validation oracle, not a production solver).
 
 Conventions: H_N = sum f_pq {p+ q} + 1/4 sum <pq||rs> {p+ q+ s r} with f the

@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference has no distributed code at all (SURVEY.md section 2: single
-process, single host).  The TPU-native scaling dimension for ECW-CC is the
+process, single host).  The scaling dimension for ECW-CC is the
 virtual-orbital index of the big ERI blocks (the vvvv ladder) and the
 embarrassingly-parallel lambda/state axes:
 
@@ -12,7 +12,8 @@ embarrassingly-parallel lambda/state axes:
     'dp' — batch parallel: independent lambda values / L1-alpha scans /
            excited states.
 
-Collectives ride ICI; nothing here requires DCN.
+XLA inserts the collectives from the shardings; the mesh is a plain device
+list (tested on a virtual CPU mesh).
 """
 
 from __future__ import annotations

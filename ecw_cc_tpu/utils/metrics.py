@@ -2,7 +2,7 @@
 
 Replaces the reference's print-based convergence tables (SURVEY.md section 5)
 with a structured collector that can also emit JSON lines, plus a thin
-jax.profiler wrapper for TPU traces.
+jax.profiler wrapper for device traces.
 """
 
 from __future__ import annotations

@@ -8,13 +8,6 @@ Koopman guesses, left eigenvectors on request.
 Run:  python examples/ipea_spectrum.py
 """
 
-import os
-
-import jax
-
-if os.environ.get("ECW_CC_TPU_DTYPE", "float64") != "float32":
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 from ecw_cc_tpu.models.molecule import Molecule

@@ -747,10 +747,10 @@ def test_device_solver_soup_opt_matches_plain(h2o_631g):
 
 @pytest.mark.parametrize("mode", ["kconcat", "flip", "kconcat+flip"])
 def test_soup_gemm_modes_exact(h2o_631g, mode):
-    """The sector-GEMM emission schemes (config.soup_gemm, r3 VERDICT next
-    #2: 'kconcat' sums spin-sector contributions into one dot with
+    """The sector-GEMM emission schemes (config.soup_gemm: 'kconcat' sums
+    spin-sector contributions into one dot with
     concatenated contraction axes; 'flip' streams the larger free dim as
-    the MXU M) are EXACT rewrites of the r3 per-assignment emission: the
+    the GEMM M) are EXACT rewrites of the r3 per-assignment emission: the
     full sector-blocked t/lambda updates agree with 'sep' to 1e-12."""
     from ecw_cc_tpu import config as cfg
     from ecw_cc_tpu.ops.ccsd_sect import lupdate_sect, tupdate_sect

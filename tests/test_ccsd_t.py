@@ -105,7 +105,7 @@ def test_energy_t_scan_matches_dense(h2o_sto3g):
 
 def test_response_density_packed_ladder_matches_dense(h2o_system):
     """ccsd_t_rdm1_response with a packed vvvv_op (pack-on-build target
-    generation, r3 VERDICT item 6) must equal the dense-path density: the
+    generation) must equal the dense-path density: the
     packed and dense update maps share the same antisymmetric fixed-point
     branch, so the implicit adjoint gradient is identical."""
     from ecw_cc_tpu.ops import ladder
@@ -121,7 +121,7 @@ def test_response_density_packed_ladder_matches_dense(h2o_system):
 def test_target_generation_never_builds_dense_vvvv():
     """In the f32 production mode every target-generation path builds
     pack-on-build ERIs: the GEris carries the (nvir,0,0,0) placeholder and
-    the dense v^4 block is never materialized (r3 VERDICT item 6)."""
+    the dense v^4 block is never materialized."""
     from ecw_cc_tpu import config as cfg
     from ecw_cc_tpu.models.gamma_exp import _build_eris_auto
     from ecw_cc_tpu.models.molecule import Molecule
@@ -199,7 +199,7 @@ def test_gexp_f32_sorted_target_matches_f64():
 
 
 def test_energy_t_bf16_slab_error_bound(h2o_631g):
-    """Reduced-precision (T) (r3 VERDICT next #7): with bf16 SLABS and
+    """Reduced-precision (T): with bf16 SLABS and
     full-precision denominators/accumulation, the sectored (T) energy
     matches the exact value to a documented 5e-3 RELATIVE bound (the slab
     rounding is ~4e-3 per element and largely averages out across the

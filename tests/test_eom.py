@@ -219,8 +219,8 @@ def test_build_es_exp_eom_trdip(h2o_sto3g):
 
 
 def test_eom_packed_ladder_matches_dense(h2o_sto3g):
-    """vvvv_op threading (pack-on-build ERIs for ES/EOM target generation,
-    r3 VERDICT item 6): the packed ladder inside the autodiff sigma must
+    """vvvv_op threading (pack-on-build ERIs for ES/EOM target
+    generation): the packed ladder inside the autodiff sigma must
     reproduce the dense omegas AND the dense left eigenvectors — the vjp
     transpose of the packed route is only equivalent under the mv_left
     output antisymmetrization (see make_sigma docstring)."""
@@ -295,7 +295,7 @@ def test_es_exp_eom_f32_sorted_matches_f64():
 
 
 def test_eom_f32_roots_match_f64():
-    """f32 production EOM (r3 VERDICT next #9 + r4 spurious-root fix):
+    """f32 production EOM (r4 spurious-root fix):
     ESexp.EOM in f32 must find the SAME lowest EE roots as f64, not the
     structural-null-space junk an unprojected f32 Davidson converges to
     (regression: w32 was [~0, ~0, 0.281] instead of [0.281, 0.308, 0.363]

@@ -167,8 +167,8 @@ def test_device_es_solver_matches_host(ecw_es):
 def test_scf_diag_left_vectors_differ_from_right():
     """The similarity-transformed singles map is non-symmetric once ts != 0:
     SCF_diag must deliver DISTINCT left eigenvectors (the reference runs a
-    separate non-symmetric Davidson for L, Solver_ES.py:746-761; r1 VERDICT
-    missing #2) with the same eigenvalue as the right solve."""
+    separate non-symmetric Davidson for L, Solver_ES.py:746-761) with the
+    same eigenvalue as the right solve."""
     from ecw_cc_tpu.ops.vexp import Exp
     from ecw_cc_tpu.solvers.es import Solver_ES
     from ecw_cc_tpu.ops.ccs import Gccs
@@ -199,7 +199,7 @@ def test_scf_diag_left_vectors_differ_from_right():
 
 
 def test_driver_es_method_device_and_diag(ecw_es):
-    """Driver-level wiring (r2 VERDICT missing #2): ECW.CCS_ES must reach
+    """Driver-level wiring: ECW.CCS_ES must reach
     the fully-jitted device solver (method='device') and the rebuilt
     SCF_diag (method='diag', reference branch Main.py:892-894)."""
     ecw = ecw_es
@@ -278,7 +278,7 @@ def test_device_es_vexp_F_parity(ecw_es):
 
 def test_device_es_solve_with_F_target(ecw_es):
     """End-to-end device ES solve (lax.while_loop) with a structure-factor
-    state target mixed with a trdip transition target (ADVICE r3 #3): the
+    state target mixed with a trdip transition target: the
     SolverES_Device run must converge and match the host Solver_ES path."""
     from ecw_cc_tpu.ops.vexp import Exp
     from ecw_cc_tpu.solvers.es import Solver_ES, SolverES_Device
@@ -331,8 +331,8 @@ def test_device_es_solve_with_F_target(ecw_es):
 
 
 def test_device_es_solver_production_basis():
-    """f64 host-path parity at the PRODUCTION ES bench config (r3 VERDICT
-    next #3): H2O/6-31++g** with the reference's two QChem trdip targets
+    """f64 host-path parity at the PRODUCTION ES bench config:
+    H2O/6-31++g** with the reference's two QChem trdip targets
     (/root/reference/test/Test_ECW_ES.py:1-50) — SolverES_Device must
     converge and match the host Solver_ES energy matrix."""
     from ecw_cc_tpu.ops.vexp import Exp

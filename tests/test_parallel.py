@@ -51,7 +51,7 @@ def test_sharded_full_solve_matches_replicated(h2o_631g):
     """The PRODUCTION while_loop solver (Solver_CCSD.SCF_device with
     on-device DIIS) run with vvvv/ovvv/t2/l2 sharded over the 8-device mesh
     must converge to the same amplitudes/energies as the replicated solve
-    (VERDICT r1 weak #4: shard the product, not the toy)."""
+    (shard the product, not the toy)."""
     from ecw_cc_tpu.ops.ccsd import GCC
     from ecw_cc_tpu.ops.vexp import Exp
     from ecw_cc_tpu.solvers.gs import Solver_CCSD
@@ -292,7 +292,7 @@ def test_batched_hybrid_lane_freeze(h2o_631g):
 
 
 def test_sharded_packed_ladder_scale_proof():
-    """Scale proof at real pVTZ shapes (r3 VERDICT item 8): the packed
+    """Scale proof at real pVTZ shapes: the packed
     ladder operand sharded over tp=8 really shrinks the per-device vvvv
     footprint to 1/tp, and the compiled sharded contraction contains NO
     all-gather of the big operand (the all-gather-free claim of

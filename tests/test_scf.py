@@ -144,7 +144,7 @@ def test_build_eris_device_matches_host(h2o_631g):
 
 def test_6311_and_pvtz_basis_registry():
     """The 6-311G family and N/O cc-pVTZ resolve and give sane atomic AO
-    counts (flagship reference configs, r1 VERDICT missing #1)."""
+    counts (flagship reference configs)."""
     from ecw_cc_tpu.models.basis_data import get_basis, BASIS
 
     for name in ("6-311g", "6-311g*", "6-311+g**", "6-311++g**",
@@ -207,7 +207,7 @@ def test_device_eris_f32_compensated_ill_conditioned():
     orthonormal half) must match the exact host f64 blocks to <= 1e-5
     max-abs even at an ill-conditioned diffuse basis — the regime where the
     r2 all-f32 two-stage scheme produced O(10x) errors and needed a ~2 min
-    host fallback (r3 VERDICT item 4).  pack_ladder must agree too."""
+    host fallback.  pack_ladder must agree too."""
     from ecw_cc_tpu.models.eris import GEris, build_eris, build_eris_device
     from ecw_cc_tpu.ops import ladder
 
@@ -215,7 +215,7 @@ def test_device_eris_f32_compensated_ill_conditioned():
     # the r2 all-f32 two-stage left ~1e-4 absolute block errors; the
     # compensated transform must be ~100x tighter.  (The extreme
     # C2H2/6-311++G(2d,2p) case, cond(S)=7.5e5, is too heavy for the CPU
-    # suite — it is exercised on the real chip by the flagship example and
+    # suite — it is exercised on the GPU by the flagship example and
     # was verified at <=1e-5 max-abs when this path landed.)
     mol = Molecule("h2o", "6-311++g(2d,2p)")
     mf = RHF(mol)
@@ -265,7 +265,7 @@ def test_device_eris_f32_accurate_for_diffuse_basis():
 
 
 def test_g_shell_engines_match_and_rotation_invariant():
-    """g-shell (l=4) support (r3 VERDICT next #8): the native C++ engine and
+    """g-shell (l=4) support: the native C++ engine and
     the NumPy engine agree on every integral kind for a basis with a g
     shell, and the spectrum is invariant under rigid rotation (a wrong
     solid-harmonic combination would break the l=4 subspace)."""
@@ -307,7 +307,7 @@ def test_g_shell_engines_match_and_rotation_invariant():
 
 
 def test_second_row_h2s_rhf_ccsd():
-    """Second-row elements (r3 VERDICT next #8): the regenerated Na-Ar
+    """Second-row elements: the regenerated Na-Ar
     STO-3G-equivalent sets run RHF -> CCSD end-to-end (H2S near
     equilibrium; the variationally-optimized zetas give E at or below the
     published-set value, published STO-3G H2S RHF ~ -394.31)."""
@@ -339,7 +339,7 @@ def test_second_row_registry_and_atoms():
 
 
 def test_h2s_631gstar_ccsd_anchor():
-    """Second-row polarized chemistry end-to-end (r4 VERDICT next #7):
+    """Second-row polarized chemistry end-to-end:
     H2S/6-31G* (in-house regenerated S core, tools/regen_basis.py
     6-31g-row2 — general-contraction [4s,3p] + published d exponent 0.65)
     through RHF + CCSD + (T).  Energies pinned from the first converged

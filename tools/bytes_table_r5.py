@@ -1,9 +1,9 @@
 """Per-term-group XLA cost-model table for the production step (r5).
 
-The r5 roofline question: the pVTZ 'highest' step moves ~5.4 GB/iter in
-~10 ms (66% of HBM peak); which term groups own the bytes?  This lowers
-each group of the sectored+sym step (the same cuts as
-tools/profile_soup_r3.py) for CPU and reports the XLA cost model's
+The roofline question: the pVTZ 'highest' step moves ~5.4 GB/iter by the
+cost model and is bandwidth-bound; which term groups own the bytes?  This
+lowers each group of the sectored+sym step (t-update, lambda-update and
+ladder term groups) for CPU and reports the XLA cost model's
 flops / bytes-accessed per group — chip-independent HBM-traffic proxy,
 fine-grained enough to target byte cuts.
 
@@ -71,7 +71,7 @@ def W(arr, kinds):
     return wrap(arr, kinds, info, sym=SYM)
 
 
-# ---- term groups (mirror tools/profile_soup_r3.py) -------------------------
+# ---- term groups of the sectored+sym step -----------------------------------
 
 def g_t_finters(er, sb, a, b, c, d):
     t1b, t2b = W(a, "ov"), W(b, "oovv")

@@ -4,7 +4,7 @@ Chip-independent evidence for the round-3 kernel work: compiles the REAL
 production step (bench.device_full_step — the body of
 Solver_CCSD.SCF_device) for CPU at C2H2 pVDZ/pVTZ shapes in the three
 kernel routes and reports the XLA cost model's flops / bytes-accessed.
-Bytes are the HBM-traffic proxy (the TPU bottleneck); flops are
+Bytes are the HBM-traffic proxy (the step is bandwidth-bound); flops are
 backend-independent.
 
 Run:  python tools/cost_table_r3.py [pvdz|pvtz|both]

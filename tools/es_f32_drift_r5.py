@@ -1,4 +1,4 @@
-"""Reproduce + diagnose the f32 ES fixed-point drift (r4 VERDICT next #2).
+"""Reproduce + diagnose the f32 ES fixed-point drift.
 
 The coupled ES solve at the production config (H2O/6-31++g**, two QChem
 trdip targets, /root/reference/test/Test_ECW_ES.py:1-50) converges to

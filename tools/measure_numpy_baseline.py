@@ -1,9 +1,9 @@
 """Measure the REAL pVTZ NumPy-baseline full step (reference engine:
 NumPy/BLAS dense contractions, SURVEY.md section 6) and cache it in
 .bench_baseline.json under bench.py's STEP_VERSION key, replacing the
-FLOP-scaled estimate (r2 VERDICT weak item 6).
+FLOP-scaled estimate.
 
-~15 min/iteration on one core; run offline (the TPU is not involved):
+~15 min/iteration on one core; run offline (no accelerator is involved):
 
     PYTHONPATH=/root/repo:$PYTHONPATH python tools/measure_numpy_baseline.py
 """
@@ -49,7 +49,7 @@ def main(basis="cc-pvtz", n_timed=1):
         print(f"timed {i}: {times[-1] / 1e3:.1f} s", flush=True)
     numpy_ms = min(times)
 
-    # keyed on the CPU identity: the baseline is a host timing (ADVICE r3)
+    # keyed on the CPU identity: the baseline is a host timing
     key = f"{basis}_v{bench.STEP_VERSION}_{bench._cpu_host_key()}"
     cache = {}
     if os.path.exists(bench.BASE_FILE):

@@ -505,7 +505,7 @@ def _slater_fit(n, l, nG=3, shared_with=None, grid=None):
 
 
 def run_sto3g_row2(elements=("Na", "Mg", "Al", "Si", "P", "S", "Cl", "Ar")):
-    """STO-3G-EQUIVALENT sets for the second row (r3 VERDICT next #8).
+    """STO-3G-EQUIVALENT sets for the second row.
 
     Construction: universal 3-Gaussian fits of the zeta=1 Slater 1s / 2sp /
     3sp radials (shared exponents within each sp pair, exactly the published
@@ -558,8 +558,8 @@ def run_sto3g_row2(elements=("Na", "Mg", "Al", "Si", "P", "S", "Cl", "Ar")):
 
 
 def run_631g_row2(elements=("S", "P", "Cl")):
-    """6-31G-QUALITY sp cores for second-row elements (r4 VERDICT next
-    #7: an embedded polarized row-2 set for H2S/SO2-class systems).
+    """6-31G-QUALITY sp cores for second-row elements (an embedded
+    polarized row-2 set for H2S/SO2-class systems).
 
     Published digits are unavailable offline.  Segmented Pople-style
     regeneration was tried and FAILED on row 2 (three routes, see git
